@@ -35,10 +35,10 @@ def test_encode_decode_dio_roundtrip(mwm):
     assert corr > 0.8, f"energy envelope correlation {corr}"
 
 
-def test_modification_ops(mwm):
+def test_modification_ops(speech16k):
     from world_tpu import World
 
-    fs, x = mwm
+    fs, x = speech16k
     vocoder = World()
     dat = vocoder.encode(fs, x, f0_method="dio")
     f0_before = dat["f0"].copy()

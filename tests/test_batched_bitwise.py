@@ -2,14 +2,13 @@
 change any row's DECISIONS, and the decimator — the one recurrence whose
 drift could flip them — must be bitwise shape-stable.
 
-Round 2 measured ~1-ulp drift between the (n,) and (B, n) programs (FMA
-contraction placement is shape- and context-dependent under the
-environment-pinned --xla_allow_excess_precision=true), which flipped zero
-crossings sitting within 1 ulp of 0 and grew into whole voiced-section
-changes.  Round 4 fixed the root: `linear_recurrence` runs every batch row
+A ~1-ulp drift between the (n,) and (B, n) programs (the compiler is free
+to contract mul+add into FMAs, and where it does depends on shape and
+context) flipped zero crossings sitting within 1 ulp of 0 and grew into
+whole voiced-section changes.  The fix: the decimators run every batch row
 through the SAME barrier-isolated program shape the single-stream call
-compiles (dsp/iir.py custom_vmap rule), making the decimators bitwise
-identical under vmap.  Downstream stages still carry last-ulp VALUE noise
+compiles (dsp/iir.py custom_vmap rules), making them bitwise identical
+under vmap.  Downstream stages still carry last-ulp VALUE noise
 from batched-vs-plain dot_general association on CPU; the assertions below
 pin what correctness requires: bitwise-equal decisions (vuv), bitwise
 decimators, and f0 values equal to ~1 ulp with no voicing flips.
@@ -19,10 +18,10 @@ import jax.numpy as jnp
 import numpy as np
 
 
-def test_decimators_batched_bitwise(mwm):
+def test_decimators_batched_bitwise(speech16k):
     from world_tpu.dsp.iir import decimate_matlab, decimate_world
 
-    fs, x = mwm
+    fs, x = speech16k
     x = x[: int(fs)].astype(np.float32)
     xj = jnp.asarray(x)
     xb = jnp.asarray(np.stack([x] * 3))
@@ -37,12 +36,11 @@ def test_decimators_batched_bitwise(mwm):
             assert n_diff == 0, f"{name}: row {i} differs in {n_diff} elems"
 
 
-def test_encode_decode_batched_decisions_equal(mwm):
+def test_encode_decode_batched_decisions_equal(speech16k):
     from world_tpu.parallel.batch import _encode_decode_one
     from world_tpu.synth.seeds import get_seeds_signals
 
-    fs, x = mwm
-    fs = int(fs)
+    fs, x = speech16k
     x = x[:fs].astype(np.float32)  # 1 s slice keeps CPU compile bounded
 
     seeds = get_seeds_signals(fs)
@@ -78,10 +76,36 @@ def test_encode_decode_batched_decisions_equal(mwm):
         # bound the relative energy of the difference instead
         # the bar is a smoke bound, not a precision claim: each shifted
         # pulse contributes ~one pulse of energy to the difference, so a
-        # handful of boundary flips lands ~1e-2 (measured 1.14e-2 on this
-        # fixture after r5's window change — benign, decisions above are
+        # handful of boundary flips lands ~1e-2 (measured 1.14e-2 on the
+        # 22.05 kHz reference fixture — benign, decisions above are
         # bitwise); 3e-2 still catches real divergence (wrong pulses
         # everywhere measures O(1))
         dy = s_y - np.asarray(batched["y"][i], np.float64)
         rel = np.sqrt(np.sum(dy ** 2) / max(np.sum(s_y ** 2), 1e-30))
         assert rel < 3e-2, f"row {i}: waveform rel-L2 drift {rel:.2e}"
+
+
+def test_cheaptrick_batched_rows_bitwise():
+    """CheapTrick's envelope for one utterance must not depend on the batch
+    it is computed in: float32, a vmapped batch of two against a batch of
+    one, every bin bitwise (the frame axis is padded to a block multiple so
+    each frame's FFT rounds the same way)."""
+    from world_tpu.spectral.cheaptrick import _cheaptrick_core
+
+    fs, n = 12000, 3072
+    rng = np.random.RandomState(0)
+    t = np.arange(n) / fs
+    xs = np.stack([(np.sin(2 * np.pi * f * t) + 0.3 * np.sin(4 * np.pi * f * t)
+                    + 0.01 * rng.randn(n)) for f in (150.0, 190.0)])
+    n_frames = int(1000 * n / fs / 10 + 1)
+    tp = jnp.asarray(np.arange(n_frames) * 0.01, jnp.float32)
+    f0 = jnp.asarray(np.stack([np.full(n_frames, 150.0),
+                               np.full(n_frames, 190.0)]), jnp.float32)
+
+    def env(x, f):
+        return _cheaptrick_core(x, fs, f, tp, 512, -0.15, 10.0)[0]
+
+    xs = jnp.asarray(xs, jnp.float32)
+    one = np.asarray(jax.jit(jax.vmap(env))(xs[1:], f0[1:]))[0]
+    two = np.asarray(jax.jit(jax.vmap(env))(xs, f0))[1]
+    assert np.array_equal(one, two), np.abs(one - two).max()

@@ -186,28 +186,79 @@ def test_minimum_phase_matches_reference_construction():
     np.testing.assert_allclose(got_resp, ref_resp, atol=1e-10)
 
 
-def test_fftmm_matches_jnp_fft():
-    """CT-matmul FFTs (forced on) match jnp.fft on CPU."""
-    import jax.numpy as jnp
 
-    from world_tpu.dsp import fftmm
+def test_compensated_cumsum_keeps_window_precision():
+    """Windowed sums taken from the compensated float32 prefix sum stay
+    accurate relative to the window, 80 dB below the running total; a plain
+    float32 cumsum loses them entirely."""
+    from world_tpu.dsp.scanops import compensated_cumsum
 
-    rng = np.random.RandomState(3)
-    for n in (256, 1024, 2048, 4096):
-        x = jnp.asarray(rng.randn(7, n - 13).astype(np.float32))
-        got = fftmm.rfft(x, n, force_mm=True)
-        want = jnp.fft.rfft(x, n, axis=-1)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=2e-4, atol=2e-4)
-        X = want * (1 + 0.3j)
-        got_i = fftmm.irfft(X, n, force_mm=True)
-        want_i = jnp.fft.irfft(X, n, axis=-1)
-        np.testing.assert_allclose(np.asarray(got_i), np.asarray(want_i),
-                                   rtol=2e-4, atol=2e-4)
-        xc = x[..., : n // 2] * (0.5 - 1.25j)
-        np.testing.assert_allclose(np.asarray(fftmm.fft(xc, n, force_mm=True)),
-                                   np.asarray(jnp.fft.fft(xc, n, axis=-1)),
-                                   rtol=2e-4, atol=2e-4)
-        np.testing.assert_allclose(np.asarray(fftmm.ifft(xc, n, force_mm=True)),
-                                   np.asarray(jnp.fft.ifft(xc, n, axis=-1)),
-                                   rtol=2e-4, atol=2e-4)
+    rng = np.random.RandomState(0)
+    x64 = 10.0 ** (-6 - 2 * rng.rand(4, 2048))    # 60-80 dB below ...
+    x64[:, :16] = 1.0                              # ... a loud head
+    x = jnp.asarray(x64, jnp.float32)
+    hi, lo = compensated_cumsum(x)
+    exact = np.cumsum(np.asarray(x, np.float64), axis=-1)
+    a, b = 1500, 1540                              # a quiet window
+    want = exact[:, b] - exact[:, a]
+    got = ((np.asarray(hi[:, b], np.float64) - np.asarray(hi[:, a]))
+           + (np.asarray(lo[:, b], np.float64) - np.asarray(lo[:, a])))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    plain = np.cumsum(np.asarray(x), axis=-1)
+    assert np.max(np.abs((plain[:, b] - plain[:, a]) - want) / want) > 1e-2
+
+
+def test_rect_smooth_float32_matches_float64_on_weak_bins():
+    """CheapTrick/D4C rectangular smoothing in float32 must track float64 on
+    bins ~80 dB below a frame's peak (the float64 goldens resolve them)."""
+    from world_tpu.aperiodicity.common import rect_smooth_half
+
+    rng = np.random.RandomState(1)
+    fft_size, fs = 1024, 16000.0
+    half = 10.0 ** (-8 * np.linspace(0, 1, fft_size // 2 + 1)) * (
+        1 + 0.5 * rng.rand(3, fft_size // 2 + 1))
+    full = np.concatenate([half, half[:, -2:0:-1]], axis=1)
+    width = np.array([80.0, 133.0, 400.0])
+    out = {}
+    for dt in (jnp.float32, jnp.float64):
+        out[dt] = np.asarray(rect_smooth_half(jnp.asarray(full, dt),
+                                              jnp.asarray(width, dt), fs,
+                                              fft_size, dt), np.float64)
+    rel = np.abs(out[jnp.float32] - out[jnp.float64]) / out[jnp.float64]
+    assert rel.max() < 1e-4, rel.max()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_uniform_frame_period_detected_in_both_dtypes(dtype):
+    """A 5 ms grid is uniform whether it arrives in float64 or float32 (the
+    first float32 step is 4.99999988 ms); a warped grid is not."""
+    from world_tpu.frames import uniform_frame_period_ms
+
+    tp = (np.arange(929) * 5 / 1000).astype(dtype)
+    assert uniform_frame_period_ms(tp) == 5.0
+    warped = tp.copy()
+    warped[400:] += dtype(0.001)
+    assert uniform_frame_period_ms(warped) is None
+
+
+def test_event_interp_float32_keeps_precision_late_in_long_signals():
+    """Zero-crossing interval f0s 35 s into an 8 kHz signal must be as
+    accurate in float32 as at its start: positions are taken relative to
+    each query, not as absolute float32 sample positions."""
+    from world_tpu.f0.events import batched_interval_interp
+
+    fs, n = 8000.0, 8000 * 36
+    t = np.arange(n) / fs
+    f_true = 150.0 + 30.0 * np.sin(2 * np.pi * 0.3 * t)
+    x = np.sin(2 * np.pi * np.cumsum(f_true) / fs)[None, :]
+    q = np.arange(35000, 35800)                   # frames at 35-35.8 s
+    tq = q / 1000.0
+    out = {}
+    for dt in (jnp.float32, jnp.float64):
+        f0, _ = batched_interval_interp(jnp.asarray(x, dt),
+                                        fs, jnp.asarray(np.arange(36000) / 1000.0, dt),
+                                        fs * 0.001)
+        out[dt] = np.asarray(f0, np.float64)[0, q]
+    rel = np.abs(out[jnp.float32] - out[jnp.float64]) / out[jnp.float64]
+    assert rel.max() < 2e-5, rel.max()
+    assert np.abs(out[jnp.float64] - np.interp(tq, t, f_true)).max() < 2.0

@@ -1,8 +1,8 @@
 """Golden parity tests for the Harvest F0 estimator, stage by stage.
 
-Slow tier: running the TPU-shaped harvest program on the XLA CPU backend
-costs ~8 min compile + ~8 min f64 run on a 1-core box (the dense
-(candidate x frame) refinement fan-out is MXU-shaped compute).  Run with
+Slow tier: running the full harvest program on the XLA CPU backend costs
+~8 min compile + ~8 min f64 run on a 1-core box (the dense (candidate x
+frame) refinement fan-out is matmul-shaped compute).  Run with
 ``pytest -m slow``."""
 from pathlib import Path
 

@@ -110,12 +110,12 @@ def test_encode_w_gvn_f0_floor_check_is_readable():
         World().encode_w_gvn_f0(22050, np.zeros(1000), source, fft_size=1024)
 
 
-def test_encode_w_gvn_f0_defaults_fft_size(mwm):
+def test_encode_w_gvn_f0_defaults_fft_size(speech16k):
     """fft_size=None must default to the CheapTrick size instead of crashing
     (the reference divides by None at main.py:90 — deliberate divergence)."""
     from world_tpu import World
 
-    fs, x = mwm
+    fs, x = speech16k
     src = np.load(GOLDEN / "source_dio.npz")
     source = {k: src[k] for k in src.files}
     dat = World().encode_w_gvn_f0(fs, x, source, fft_size=None)
@@ -281,7 +281,7 @@ def test_harvest_capacity_warnings():
         _warn_capacity(False, False, 256)  # no warning
 
 
-def test_requiem_decode_seed_and_offsets(mwm):
+def test_requiem_decode_seed_and_offsets():
     """decode(seed=, noise_offsets=) is deterministic per seed and varies
     across seeds/offsets (the reference is nondeterministic every call,
     main.py:205 — improved, not copied)."""
@@ -313,7 +313,7 @@ def test_requiem_decode_seed_and_offsets(mwm):
     assert not np.allclose(y0, y2)
 
 
-def test_modify_duration_then_decode(mwm):
+def test_modify_duration_then_decode():
     """modify_duration produces a non-uniform time grid; decode must handle
     it (the reference demo's disabled branch, example/prosody.py:39-44)."""
     from world_tpu import World

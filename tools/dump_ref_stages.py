@@ -2,11 +2,10 @@
 
 Replays /root/reference/world/harvest.py:17-56 stage by stage (via the test
 shim) and saves the post-RemoveUnreliable candidates + scores plus the
-SearchF0Base argmax picks, so TPU-f32 decision margins can be measured
-against the true f64 margins (tools/diag_16k_flips.py finds WHERE the flips
-are; this finds HOW CLOSE the calls were in f64).
+SearchF0Base argmax picks, so float32 decision margins can be measured
+against the true f64 margins (HOW CLOSE the calls were in f64).
 
-Usage: python tools/dump_ref_stages.py tests/golden/harvest_16k.npz /tmp/ref16_stages.npz
+Usage: python tools/dump_ref_stages.py tests/golden/harvest_16k.npz out.npz
 """
 import sys
 

@@ -311,9 +311,9 @@ def gen_requiem(source):
 
 
 def gen_swipe():
-    """SWIPE' f0 golden (reference swipe.py:9-102) for the on-device gate in
-    tools/bench_paths.py — tests/test_swipe.py drives the live shim instead,
-    but the TPU bench needs a committed oracle."""
+    """SWIPE' f0 golden (reference swipe.py:9-102) at 22.05 kHz, a committed
+    oracle for gates that cannot drive the live shim (tests/test_swipe.py
+    does)."""
     ref_shim.reference_world()
     from world import swipe as RS
 

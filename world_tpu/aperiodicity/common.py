@@ -1,9 +1,9 @@
 """Shared D4C machinery (classic + Requiem), explicitly batched over frames.
 
 Semantics from /root/reference/world/d4c.py / d4cRequiem.py; execution is
-TPU-first AND batch-first: every stage takes (F, ...) arrays so that signal
+batch-first: every stage takes (F, ...) arrays so that signal
 gathers lower to flat 1-D-operand gathers, row lookups use take_rows, and
-cumulative sums use the triangular-matmul prefix (vmapped per-frame code
+spectral smoothing uses a compensated prefix sum (vmapped per-frame code
 hides the batch from XLA and falls onto slow gather/scan lowerings).
 
 Key reformulation notes:
@@ -22,9 +22,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..dsp import fftmm
 from ..dsp.minphase import mirror_full
-from ..dsp.scanops import matmul_cumsum, shift_select_rows, take_rows
+from ..dsp.scanops import compensated_cumsum, shift_select_rows, take_rows
 from ..dsp.windows import np_nuttall
 from ..frames import (apply_adaptive_window, uniform_centered_slabs,
                       windowed_segment_batch)
@@ -78,30 +77,38 @@ def rect_smooth_half(signal_full, width, fs, fft_size: int, dtype,
     smoothing widths (<= 2*f0_ceil) sit far inside the 4 kHz bound; the
     clip only engages for absurd f0 (> ~6 kHz).
     Returns (F, fft_size//2+1) == (cs(k*df+w/2) - cs(k*df-w/2)) / width.
+
+    The lerped read cs(m+f) = cs[m] + f*x[m+1] makes the difference
+    (cs[m1] - cs[m0]) + f1*x[m1+1] - f0*x[m0+1]; the integer-bounded part is
+    taken from a compensated cumsum (dsp.scanops.compensated_cumsum), so a
+    bin 60 dB below its frame's peak keeps float32 precision instead of
+    inheriting the rounding of the running total.
     """
     df = fs / fft_size
     width = jnp.asarray(width)
     if width.ndim == 1:
         width = width[:, None]
-    double_spectrum = jnp.concatenate([signal_full, signal_full], axis=-1)
-    cs = matmul_cumsum(double_spectrum * df)
+    inc = jnp.concatenate([signal_full, signal_full], axis=-1) * df
+    hi, lo = compensated_cumsum(inc)
+    F = inc.shape[0]
     x0 = -fs + df / 2
     nb = fft_size // 2 + 1
     # query position for bin k: k + alpha with per-row alpha = (+-w/2 - x0)/df
     span = int(np.ceil(max_width_hz / 2 / df)) + 2
     center = fft_size  # alpha at width=0: (0 - x0)/df = fft_size - 1/2
+    slab = jnp.concatenate([hi, lo, inc])[:, center - span :]
 
     def read(alpha):
         m = jnp.floor(alpha)
         frac = (alpha - m).astype(dtype)
         sh = jnp.clip(m.astype(jnp.int32) - (center - span),
                       0, 2 * span)[:, 0]
-        v = shift_select_rows(cs[:, center - span :], sh, 2 * span, nb + 1)
-        return v[:, :nb] * (1 - frac) + v[:, 1 : nb + 1] * frac
+        v = shift_select_rows(slab, jnp.tile(sh, 3), 2 * span, nb + 1)
+        return v[:F, :nb], v[F : 2 * F, :nb], v[2 * F :, 1 : nb + 1], frac
 
-    a_lo = (-width / 2 - x0) / df
-    a_hi = (width / 2 - x0) / df
-    return (read(a_hi) - read(a_lo)) / width
+    h1, l1, x1, f1 = read((width / 2 - x0) / df)
+    h0, l0, x0_, f0 = read((-width / 2 - x0) / df)
+    return ((h1 - h0) + (l1 - l0) + (f1 * x1 - f0 * x0_)) / width
 
 
 # backwards-compatible name
@@ -127,7 +134,7 @@ def love_train_vuv(x, fs, f0, temporal_positions, threshold, max_half: int,
     waveform, _, _ = apply_adaptive_window(
         seg, float(fs), f0_c, t, 1.5, max_half, "blackman",
         sub_sample_shift=True)
-    spec = fftmm.rfft(waveform, fft_size_lt)
+    spec = jnp.fft.rfft(waveform, fft_size_lt)
     power = jnp.abs(spec) ** 2
     s1 = jnp.sum(power[:, b0:b1], axis=1)
     s2 = s1 + jnp.sum(power[:, b1:b2], axis=1)
@@ -156,8 +163,8 @@ def _centroid_from_slab(slab, margin, fs, f0, t_base, t_shifted, max_half: int,
     base_index = jnp.arange(-max_half, max_half + 1, dtype=dtype)[None, :]
     t_true = jnp.where(mask, base_index + half + 1, 0.0)
     xn = waveform / jnp.sqrt(jnp.sum(waveform ** 2, axis=1, keepdims=True))
-    S = fftmm.rfft(xn, fft_size)
-    U = fftmm.rfft(xn * t_true, fft_size)
+    S = jnp.fft.rfft(xn, fft_size)
+    U = jnp.fft.rfft(xn * t_true, fft_size)
     return S.real * U.real + S.imag * U.imag
 
 
@@ -179,7 +186,7 @@ def smoothed_power_spectrum_half(x, fs, f0, t_pos, max_half: int, fft_size: int,
     waveform, _, _ = apply_adaptive_window(
         seg, float(fs), f0, t_pos, 2.0, max_half, "hanning",
         sub_sample_shift=True)
-    power = jnp.abs(fftmm.rfft(waveform, fft_size)) ** 2
+    power = jnp.abs(jnp.fft.rfft(waveform, fft_size)) ** 2
     power = dc_correction_half(power, f0, float(fs), fft_size, dtype)
     return linear_smoothing_full_to_half(mirror_full(power), f0, float(fs),
                                          fft_size, dtype)
@@ -188,20 +195,17 @@ def smoothed_power_spectrum_half(x, fs, f0, t_pos, max_half: int, fft_size: int,
 def static_group_delay_half(centroid_half, smoothed_power_half, fs, f0,
                             fft_size: int, dtype):
     """T_D(w) (d4c.py:165-174) on half bins, batched."""
-    # reduced-precision guards (both inactive on f64 golden fixtures; the
-    # reference divides unguarded):
-    #  1. the smoothed power can quantize to exactly 0 on dead bins — clamp
-    #     the divisor at a scale-relative tiny;
-    #  2. the resulting group delay is physically bounded by the analysis
-    #     window length; clip it in f32 so one degenerate bin cannot poison
-    #     the downstream smoothing cumsum into catastrophic cancellation.
+    # reduced-precision guard (inactive on f64 golden fixtures; the
+    # reference divides unguarded): the smoothed power can round to exactly
+    # 0 on dead bins — clamp the divisor at a scale-relative tiny.  The
+    # group delay itself legitimately reaches ~1e6 on weak bins; the
+    # compensated smoothing (rect_smooth_half) keeps such bins from
+    # spoiling their neighbours, so no clip is needed.
     eps = jnp.finfo(dtype).eps
     floor = jnp.mean(jnp.abs(smoothed_power_half), axis=-1, keepdims=True) * eps * eps
     den = jnp.where(jnp.abs(smoothed_power_half) < floor,
                     floor, smoothed_power_half)
     gd = centroid_half / den
-    if jnp.dtype(dtype) == jnp.float32:
-        gd = jnp.clip(gd, -2.0 * fft_size, 2.0 * fft_size)
     gd = linear_smoothing_full_to_half(mirror_full(gd), f0 / 2, float(fs),
                                        fft_size, dtype)
     gd_s = linear_smoothing_full_to_half(mirror_full(gd), f0, float(fs),
@@ -225,10 +229,10 @@ def coarse_aperiodicity(group_delay_half, fs: float, fft_size: int,
         center = int(np.floor(frequency_interval * (i + 1) / (fs / fft_size)))
         segs.append(gd_full[..., center - hw : center + hw + 1])
     seg = jnp.stack(segs, axis=-2) * jnp.asarray(window, dtype=dtype)
-    power = jnp.abs(fftmm.rfft(seg, fft_size)) ** 2
+    power = jnp.abs(jnp.fft.rfft(seg, fft_size)) ** 2
     # reference: cumsum(sort(power))[n - boundary - 2] / total — i.e. the sum
     # of all but the (boundary+1) largest values.  top_k replaces the full
-    # sort (TPU sorts serialize badly; top_k with small k is fast).
+    # sort (top_k with small k is cheaper than a full sort).
     den = jnp.sum(power, axis=-1)
     largest, _ = jax.lax.top_k(power, boundary + 1)
     num = den - jnp.sum(largest, axis=-1)

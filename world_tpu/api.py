@@ -20,18 +20,9 @@ from .synth.classic import synthesis
 logger = logging.getLogger(__name__)
 
 
-def _to_host(v):
-    if not isinstance(v, jnp.ndarray):
-        return v
-    if jnp.iscomplexobj(v):
-        # some TPU runtimes cannot transfer complex buffers to the host (and
-        # one failed attempt poisons the client) — split on device instead
-        return np.asarray(v.real) + 1j * np.asarray(v.imag)
-    return np.asarray(v)
-
-
 def _np(d):
-    return {k: _to_host(v) for k, v in d.items()}
+    return {k: np.asarray(v) if isinstance(v, jnp.ndarray) else v
+            for k, v in d.items()}
 
 
 class World:

@@ -6,7 +6,7 @@ mirrored low-frequency replica: replica(f) = interp of the spectrum at
 uniform bin grid the read positions are k + alpha with a per-frame constant
 alpha, so the whole thing is a per-row fractional shift of the REVERSED
 low-band slice — realized with radix shift-selects and two static boundary
-patches (TPU gathers serialize).
+patches, no gathers.
 """
 import jax.numpy as jnp
 

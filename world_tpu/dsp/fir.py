@@ -1,10 +1,9 @@
-"""FIR filtering as im2col matmuls (MXU path).
+"""FIR filtering as im2col matmuls.
 
 The reference implements its band filters as full-signal-length FFT products
-(/root/reference/world/dio.py:87, harvest.py:259-261).  On TPU, XLA's large
-1-D FFTs are slow while matmuls are nearly free, and the filters are short
-(<= ~500 taps): the exact same linear convolution is an (n, L) x (L, B)
-matmul over statically-sliced shifted copies of the signal.
+(/root/reference/world/dio.py:87, harvest.py:259-261).  The filters are
+short (<= ~500 taps), so the exact same linear convolution is an
+(n, L) x (L, B) matmul over statically-sliced shifted copies of the signal.
 """
 import jax
 import jax.numpy as jnp

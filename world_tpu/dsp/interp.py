@@ -1,6 +1,6 @@
 """Linear interpolation primitives (fixed-shape, mask-aware).
 
-TPU-native replacements for the reference's scipy.interp1d calls
+Fixed-shape replacements for the reference's scipy.interp1d calls
 (fill_value='extrapolate', e.g. /root/reference/world/dio.py:167-179) and the
 uniform-grid fast path ``interp1H`` (/root/reference/world/cheaptrick.py:122-131,
 d4c.py:226-233).  Ragged event lists are handled by passing a ``valid_count``
@@ -65,7 +65,7 @@ def interp1h_uniform(x0, dx, y, xi, last_x):
     base_i = jnp.clip(base.astype(jnp.int32), 0, n - 1)
     next_i = jnp.minimum(base_i + 1, n - 1)
     if y.ndim > 1:
-        from .scanops import take_rows  # flat gather; take_along_axis is slow on TPU
+        from .scanops import take_rows  # flat 1-D gather
 
         y_b = take_rows(y, base_i)
         y_n = take_rows(y, next_i)

@@ -8,7 +8,6 @@ FFTs.
 """
 import jax.numpy as jnp
 
-from . import fftmm
 
 
 def mirror_full(half):
@@ -29,15 +28,15 @@ def minimum_phase_spectrum(amplitude_full):
     part = bins [fft/2 .. fft-1] doubled + DC (synthesis.py:106-111).
     """
     fft_size = amplitude_full.shape[-1]
-    cep = fftmm.fft(jnp.log(amplitude_full) / 2.0).real
+    cep = jnp.fft.fft(jnp.log(amplitude_full) / 2.0).real
     idx = jnp.arange(fft_size)
     sel = (idx >= fft_size // 2)
     complex_cep = jnp.where(sel, cep * 2.0, 0.0)
     complex_cep = complex_cep.at[..., 0].set(cep[..., 0])
-    return jnp.exp(fftmm.ifft(complex_cep))
+    return jnp.exp(jnp.fft.ifft(complex_cep))
 
 
 def minimum_phase_response(amplitude_full):
     """fftshift(ifft(min-phase spectrum).real): the time response."""
     spec = minimum_phase_spectrum(amplitude_full)
-    return jnp.fft.fftshift(fftmm.ifft(spec).real, axes=-1)
+    return jnp.fft.fftshift(jnp.fft.ifft(spec).real, axes=-1)

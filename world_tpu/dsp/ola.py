@@ -1,8 +1,9 @@
-"""Overlap-add as gathers (TPU-fast) instead of scatter-adds.
+"""Overlap-add without scatter-adds.
 
 The synthesizers place ~10^3-10^4 windowed responses at irregular positions
 (/root/reference/world/synthesis.py:67-81, synthesisRequiem.py:59-61,99-100).
-A scatter-add serializes on TPU; instead each OUTPUT sample gathers from the
+Instead of a scatter-add (whose accumulation order is not fixed), each
+OUTPUT sample gathers from the
 (small, bounded) set of responses overlapping it: response start positions
 are nondecreasing, so the overlapping set is a contiguous run of at most K
 responses found with one binary search — K static, derived from the minimum
@@ -45,7 +46,7 @@ def slotted_ola(resp, starts, y_length: int, slot: int = 32):
     most a few responses start within any ``slot``-wide window.
 
     Each response is shifted to its in-slot offset (radix select), responses
-    are summed per slot with ONE one-hot matmul (MXU), and the slotted grid
+    are summed per slot with ONE one-hot matmul, and the slotted grid
     folds with :func:`uniform_ola`.  Multiple responses per slot are handled
     exactly (the matmul accumulates).  Invalid responses must carry starts
     >= y_length + W.
@@ -62,9 +63,9 @@ def slotted_ola(resp, starts, y_length: int, slot: int = 32):
     s_ids = jnp.arange(n_slots + 1, dtype=sid.dtype)
     onehot = (s_ids[:, None] == sid[None, :]).astype(resp.dtype)
     # onehot is 0/1 (exactly bf16-representable): dot_exact_b reproduces the
-    # full-f32 product in 3 single-pass bf16 dots — exact waveform samples
-    # at half the cost of a 6-pass HIGHEST dot (a DEFAULT dot here would
-    # truncate the responses to bf16 and put ~2^-8 noise in the output)
+    # full-f32 product with 3 bf16 dots — exact waveform samples (a DEFAULT
+    # f32 dot here could run in reduced precision and put noise in the
+    # output)
     from ..ops import dot_exact_b
 
     slotted = dot_exact_b(shifted.T, onehot.T).T[: n_slots]

@@ -1,11 +1,7 @@
-"""TPU-fast scan/search primitives.
+"""Scan/search primitives built from compares, scans and flat gathers.
 
-XLA's stock lowerings for cumsum (sequential/reduce-window) and
-jnp.searchsorted ('scan' loop) are pathologically slow on TPU.  These
-replacements map the same math onto what the hardware likes:
-
-  * matmul_cumsum: blocked prefix sum — within-block prefix via a lower-
-    triangular matmul (MXU), across-block offsets via a tiny cumsum.
+  * compensated_cumsum: a double-word prefix sum, for windowed sums that
+    must keep their precision next to a large running total.
   * searchsorted_rows: batched binary search with statically-unrolled steps
     and FLAT 1-D gathers (arbitrary 1-D gathers are fast; take_along_axis
     and lax.scan-based searches are not).
@@ -15,39 +11,28 @@ import jax.numpy as jnp
 import numpy as np
 
 
-def matmul_cumsum(x, block: int = 256):
-    """Inclusive cumsum along the last axis via triangular matmuls.
+def _two_sum(a, b):
+    """s + e == a + b exactly, s = fl(a + b) (Knuth's TwoSum)."""
+    s = a + b
+    bp = s - a
+    return s, (a - (s - bp)) + (b - bp)
 
-    Exact for integer-valued inputs below the dtype's integer range; for
-    floats the summation order differs from sequential cumsum by blocked
-    association (same class of reordering XLA's own tree cumsum performs).
-    Integer inputs are computed in f32 when safe (counts < 2^24) or f64.
-    """
-    x = jnp.asarray(x)
-    orig_dtype = x.dtype
-    if jnp.issubdtype(orig_dtype, jnp.integer) or orig_dtype == jnp.bool_:
-        compute = jnp.float32 if x.shape[-1] < (1 << 24) else jnp.float64
-        x = x.astype(compute)
-    n = x.shape[-1]
-    pad = (-n) % block
-    xp = jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, pad)])
-    nb = (n + pad) // block
-    blocks = xp.reshape(x.shape[:-1] + (nb, block))
-    tri = jnp.asarray(np.tril(np.ones((block, block))), dtype=x.dtype)
-    # HIGHEST: prefix sums feed threshold decisions (d4c cumulative power,
-    # candidate compaction); a DEFAULT bf16 pass here makes the batched
-    # (vmapped) program drift from the single-stream one
-    within = jnp.einsum("...k,jk->...j", blocks, tri,
-                        preferred_element_type=x.dtype,
-                        precision=jax.lax.Precision.HIGHEST)
-    block_tot = within[..., -1]
-    offsets = jnp.cumsum(block_tot, axis=-1) - block_tot  # tiny: nb elements
-    out = (within + offsets[..., None]).reshape(xp.shape)[..., :n]
-    if jnp.issubdtype(orig_dtype, jnp.integer):
-        out = out.astype(orig_dtype)
-    elif orig_dtype == jnp.bool_:
-        out = out.astype(jnp.int32)
-    return out
+
+def compensated_cumsum(x):
+    """Inclusive cumsum along the last axis as an unevaluated sum hi + lo.
+
+    A TwoSum-compensated associative scan: hi is the rounded running sum and
+    lo carries its rounding error, so hi + lo holds ~twice the working
+    precision.  Windowed sums taken as differences of it,
+    ``(hi[b] - hi[a]) + (lo[b] - lo[a])``, are then accurate relative to the
+    WINDOW, not to the running total — which a plain float32 cumsum over a
+    spectrum with ~90 dB of dynamic range is not."""
+    def combine(a, b):
+        s, e = _two_sum(a[0], b[0])
+        return s, a[1] + b[1] + e
+
+    return jax.lax.associative_scan(combine, (x, jnp.zeros_like(x)),
+                                    axis=x.ndim - 1)
 
 
 def searchsorted_rows(a, v, side: str = "left", n_steps: int = None):
@@ -82,8 +67,8 @@ def count_less_rows(a, q, side: str = "left"):
     """Row-wise searchsorted for SHORT rows via a compare-reduce.
 
     a: (R, N) sorted rows with small N; q: (Q,) or (R, Q) queries.  Counting
-    elements < q (or <= q for side='right') costs R*N*Q fused compares —
-    far cheaper than binary-search gathers on TPU when N is small.
+    elements < q (or <= q for side='right') costs R*N*Q fused compares,
+    which replaces a binary-search gather when N is small.
     """
     a = jnp.asarray(a)
     q = jnp.asarray(q)
@@ -98,8 +83,8 @@ def count_less_rows(a, q, side: str = "left"):
 
 def shift_select_rows(slab, shift, max_shift: int, width: int, radix: int = 16):
     """out[r, j] = slab[r, shift[r] + j] for per-row integer shifts in
-    [0, max_shift], via a two-level radix select over static slices (a
-    per-row gather would serialize on TPU).
+    [0, max_shift], via a two-level radix select over static slices (no
+    per-row gather).
 
     slab: (R, W) with W >= max_shift + width.
     """
@@ -125,8 +110,8 @@ def select_rows_small(y, idx):
     """take_along_axis(y, idx, axis=-1) via an equality-masked sum.
 
     y: (..., N); idx: (..., Q) int32.  Gather-free: costs N*Q fused
-    compare-select-adds per row, which beats TPU's serialized gathers
-    whenever N is small (<= a few thousand).  Exact (no arithmetic on y).
+    compare-select-adds per row, meant for small N (<= a few thousand).
+    Exact (no arithmetic on y).
     """
     y = jnp.asarray(y)
     n = y.shape[-1]
@@ -136,7 +121,7 @@ def select_rows_small(y, idx):
 
 
 def take_rows(y, idx):
-    """take_along_axis(y, idx, axis=-1) via a flat 1-D gather (TPU-fast).
+    """take_along_axis(y, idx, axis=-1) via a flat 1-D gather.
 
     y: (..., N); idx: (..., Q) int32 indices into the last axis.
     """

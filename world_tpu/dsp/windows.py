@@ -6,6 +6,7 @@ d4c.py:237-245; hanning: scipy.signal.hanning call sites).
 All are symmetric windows with endpoints included (MATLAB ``hanning(N)``
 corresponds to ``hann(N+2)[1:-1]`` here).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -34,7 +35,8 @@ def nuttall(n: int, dtype=jnp.float64):
     t = jnp.arange(n, dtype=dtype) * 2 * jnp.pi / (n - 1)
     coefs = jnp.asarray([0.355768, -0.487396, 0.144232, -0.012604], dtype=dtype)
     k = jnp.arange(4, dtype=dtype)
-    return jnp.einsum("c,ct->t", coefs, jnp.cos(k[:, None] * t[None, :]))
+    return jnp.einsum("c,ct->t", coefs, jnp.cos(k[:, None] * t[None, :]),
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def nuttall_masked(n_valid, max_len: int, dtype=jnp.float64):
@@ -48,7 +50,8 @@ def nuttall_masked(n_valid, max_len: int, dtype=jnp.float64):
     t = idx * (2.0 * jnp.pi / (n_valid - 1))
     coefs = jnp.asarray([0.355768, -0.487396, 0.144232, -0.012604], dtype=dtype)
     k = jnp.arange(4, dtype=dtype)
-    w = jnp.einsum("c,ct->t", coefs, jnp.cos(k[:, None] * t[None, :]))
+    w = jnp.einsum("c,ct->t", coefs, jnp.cos(k[:, None] * t[None, :]),
+                   precision=jax.lax.Precision.HIGHEST)
     return jnp.where(idx < n_valid, w, 0.0)
 
 

@@ -33,8 +33,8 @@ def zero_crossing_events(x, fs, capacity: int) -> Events:
     denom = x_next - x
     fine = idx1 - x / jnp.where(denom == 0, 1.0, denom)
     # scatter-free compaction: the j-th event's position is the first index
-    # where cumsum(mask) reaches j+1 — a batched binary search (gathers only;
-    # TPU scatters/sorts would serialize)
+    # where cumsum(mask) reaches j+1 — a batched binary search (gathers only,
+    # no scatter or sort)
     c = jnp.cumsum(mask.astype(jnp.int32))
     sel = jnp.searchsorted(c, jnp.arange(1, capacity + 2, dtype=jnp.int32),
                            side="left")

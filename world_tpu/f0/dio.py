@@ -1,4 +1,4 @@
-"""DIO F0 estimator — TPU-native reformulation.
+"""DIO F0 estimator — a fixed-shape batched reformulation.
 
 Mirrors /root/reference/world/dio.py (API and outputs) with a different
 execution design:

@@ -1,7 +1,7 @@
-"""Harvest F0 estimator — TPU-native reformulation (the framework centerpiece).
+"""Harvest F0 estimator — the framework centerpiece, as fixed-shape batches.
 
 Mirrors /root/reference/world/harvest.py semantically; the execution design
-replaces every CPU idiom with a TPU one:
+replaces every per-item CPU loop with a batched device program:
 
   * ~145 band-pass filters -> ONE im2col matmul (dsp.fir) + static slices;
   * ragged zero-crossing event lists never materialize: candidate f0s come
@@ -82,15 +82,14 @@ def raw_band_candidates(y, actual_fs, boundary_f0_list, temporal_positions,
 
     Band filtering runs as ONE im2col matmul (dsp.fir) — the reference's
     zero-padded FFT products (harvest.py:259-261) compute the identical
-    linear convolution but XLA's large 1-D FFTs are ~100x slower on TPU than
-    this MXU formulation.  Events/interp run batched over all bands
+    linear convolution.  Events/interp run batched over all bands
     (f0.events).
 
     ``band_chunk``: if set, process the band axis in lax.map chunks of that
-    many bands.  Bands are independent, so this bounds live HBM at
-    O(band_chunk * y_len) instead of O(n_bands * y_len) — required for
-    minutes-long audio (at 60 s the all-bands event tensor alone is ~28 GB
-    of temps, past a v5e's 16 GB HBM).
+    many bands.  Bands are independent, so this bounds live device memory
+    at O(band_chunk * y_len) instead of O(n_bands * y_len) — needed for
+    minutes-long audio (at 60 s the all-bands event tensors alone are
+    ~28 GB of temporaries).
     """
     from .events import four_event_interp
     from ..dsp.fir import fir_bank_full
@@ -152,8 +151,7 @@ def detect_candidates(raw, max_candidates: int, threshold: int = 10):
     """Per-frame runs of >=threshold positive bands -> mean f0.
 
     Fully scatter-free: run boundaries come from batched binary searches over
-    per-frame cumsums (TPU scatters serialize); run sums are cumsum
-    differences.
+    per-frame cumsums; run sums are cumsum differences.
     """
     n_bands, n_frames = raw.shape
     max_runs = n_bands // 2 + 1
@@ -261,13 +259,10 @@ def _refine_block(seg, t_c, cands, actual_fs, f0_floor, f0_ceil, max_half: int):
     # Every per-candidate fft_size is a power of two <= S (the f0_floor
     # size), so bin `bins` of a size-fft_size DFT is bin K = bins*(S/fft_size)
     # of ONE size-S DFT: the <=6 per-(cand,frame) harmonic bins of the
-    # data-dependent-size DFTs become a (2CB, W) x (W, S+2) MXU matmul
-    # against a static cos/sin basis plus equality-masked bin selects —
-    # no gathers, no (C,B,6,W) phase tensor.  The basis angles (-2pi*K/S)*n
-    # are bitwise identical to the reference arithmetic
-    # (-2pi*bins/fft_size)*n because K/S == bins/fft_size exactly.  On TPU
-    # ALL stages (windows, DFT, selects, instantaneous-frequency math) run
-    # as one fused Pallas kernel per VMEM tile (ops.refine_dft).
+    # data-dependent-size DFTs are read from one size-S DFT whose angles
+    # (-2pi*K/S)*n equal the reference arithmetic (-2pi*bins/fft_size)*n
+    # because K/S == bins/fft_size exactly.  ops.refine_dft runs it as a
+    # Triton kernel on the GPU and as a basis matmul elsewhere.
     S = int(2 ** np.ceil(np.log2(2 * max_half + 1) + 1))
     nb = S // 2 + 1
 
@@ -301,10 +296,9 @@ def _refine_bucketed(seg, t_c, cands, actual_fs, f0_floor, f0_ceil,
     re-compact into their own slot grid (rank-select, exact copies), the
     shared frame segments take a static central slice, and the SAME kernel
     runs at the bucket's native (W, S).  Results match the single-bucket
-    path bitwise on the MXU (basis angles depend only on K/S == bins/fft,
-    dropped columns multiply masked-zero window samples, and the sequential
-    K accumulation keeps the nonzero-term order); CPU dots may re-block the
-    sum by last-ulp amounts."""
+    path to the last ulp (basis angles depend only on K/S == bins/fft and
+    dropped columns multiply masked-zero window samples; only the summation
+    order of the nonzero terms may differ)."""
     from ..dsp.scanops import count_less_rows, select_rows_small
 
     caps = _bucket_caps(max_half)
@@ -428,10 +422,8 @@ def _select_best_f0(reference_f0, candidates, allowed_range):
 
 
 def search_f0_base(cands, scores):
-    """Highest-score candidate per frame (harvest.py:314-319).
-
-    One-hot masked sum instead of take_along_axis: the per-column gather
-    serializes on TPU (measured 4.2 ms for (105, 4645); this is ~0.05)."""
+    """Highest-score candidate per frame (harvest.py:314-319), as a one-hot
+    masked sum instead of take_along_axis."""
     idx = jnp.argmax(scores, axis=0)
     rows = jnp.arange(cands.shape[0])[:, None]
     return jnp.sum(jnp.where(rows == idx[None, :], cands, 0.0), axis=0)
@@ -546,8 +538,7 @@ def fix_step3(f0_step2, cands, scores, allowed_range: float = 0.18,
             f0_step2, st, lp_b, -1, cands, allowed_range, threshold1 + 1)
         # assemble the extended section row: base section + the two chains.
         # placing a 101-vector at a traced offset is done as an iota-masked
-        # contraction (fused onto the MXU) — both gathers and scatters
-        # serialize on TPU
+        # contraction instead of a gather or scatter
         i = jnp.arange(n)
         row = jnp.where((i >= st) & (i <= ed), f0_step2, 0.0)
         k = jnp.arange(threshold1 + 1)
@@ -701,9 +692,8 @@ def smooth_f0(f0, max_sections: int = 256, section_chunk: int = 64):
     One batched FFT convolution instead of 4 associative-scan IIR passes per
     section: every section row (constant-extended, as in the reference) is
     convolved with the static symmetric zero-phase kernel in a
-    (section_chunk, N) rfft/irfft pair — on TPU these run as Cooley-Tukey
-    matmuls on the MXU (dsp.fftmm), replacing the lax.map of log-depth scans
-    that dominated harvest's runtime (measured 24 ms -> ~1 ms).  Kept outputs
+    (section_chunk, N) rfft/irfft pair, replacing a lax.map of log-depth
+    IIR scans per section.  Kept outputs
     all sit >= R samples from both row ends (the reference's 300-pad), so
     circular wrap never contaminates them.
 
@@ -720,8 +710,7 @@ def smooth_f0(f0, max_sections: int = 256, section_chunk: int = 64):
     starts, ends, count = _sections(padded, max_sections)
     valid = jnp.arange(max_sections) < count
 
-    from ..dsp import fftmm
-
+    
     N = int(2 ** np.ceil(np.log2(m + 2 * R)))
     g = _smooth_zero_phase_kernel()
     kern = np.zeros(N)
@@ -739,7 +728,7 @@ def smooth_f0(f0, max_sections: int = 256, section_chunk: int = 64):
         rows = jnp.where(i[None, :] < st[:, None], c_st[:, None],
                          jnp.where(i[None, :] > ed[:, None], c_ed[:, None],
                                    padded[None, :]))
-        out = fftmm.irfft(fftmm.rfft(rows, N) * gf, N)[:, :m]
+        out = jnp.fft.irfft(jnp.fft.rfft(rows, N) * gf, N)[:, :m]
         return jnp.sum(jnp.where(in_sec & val[:, None], out, 0.0), axis=0)
 
     if max_sections <= section_chunk:
@@ -850,8 +839,9 @@ def _harvest_core(x, fs, f0_floor, f0_ceil, frame_period, max_candidates,
     duration = y_len / actual_fs
     capacity = int(duration * boundary_f0_list[-1] * 1.5) + 64
 
-    # past ~27 s of audio the all-bands event tensors outgrow HBM; chunk the
-    # (independent) band axis so live memory stays O(band_chunk * y_len)
+    # past ~27 s of 16 kHz audio, chunk the (independent) band axis so live
+    # memory stays O(band_chunk * y_len); the threshold is correctness-
+    # neutral (tests/test_robustness.py) and was sized for a 16 GB device
     band_chunk = 32 if y_len > 200_000 else None
     raw = raw_band_candidates(y, actual_fs, boundary_f0_list, basic_tp,
                               f0_floor, f0_ceil, fft_size, capacity,

@@ -1,13 +1,13 @@
 """StoneMask F0 refinement — instantaneous frequency at harmonic DFT bins.
 
 Mirrors /root/reference/world/stonemask.py semantically, but with a key
-TPU-first reformulation: the reference computes, per frame, two FFTs of a
+reformulation: the reference computes, per frame, two FFTs of a
 data-dependent size and then reads the spectrum at only 2 (pass 1) / 6
 (pass 2) harmonic bins.  Here each needed bin is computed directly as a dot
 product between the windowed segment and that bin's DFT vector — the
 data-dependent fft_size becomes a mere scalar in the phase formula, every
 frame shares one static segment length, and all frames batch into a handful
-of einsums (MXU/VPU-friendly), with no FFT at all.
+of einsums, with no FFT at all.
 """
 import math
 from functools import partial
@@ -85,12 +85,11 @@ def _refine_one(x, fs, current_time, current_f0, max_half: int):
         re_d, im_d = _dft_bins(seg_diff, bins, fft_size)
         # compensated in f32: same cancellation-prone difference of products
         # as harvest's IF numerator (ops.prod_diff docstring).  NOTE: this is
-        # hygiene, not the cause of the dio path's ~1.95 Hz f32-vs-f64 RMSE —
-        # that tail was measured IDENTICAL on CPU-f32 and TPU-f32 and comes
-        # from decision-boundary chaos (the 20%-change rejection at :98 and
-        # integer bin rounding at :81 feeding pass 2), not from arithmetic
-        # noise; median frame error is 6e-4 Hz (see PERF_NOTES.md, dio
-        # residual).
+        # hygiene, not the cause of the dio path's ~1.95 Hz f32-vs-f64 RMSE
+        # at 22.05 kHz — that tail comes from decision-boundary chaos (the
+        # 20%-change rejection at :98 and integer bin rounding at :81
+        # feeding pass 2), not from arithmetic noise; the median frame
+        # error is 6e-4 Hz on the CPU in f32.
         numerator_i = prod_diff(re_s, im_d, im_s, re_d)
         power = re_s ** 2 + im_s ** 2
         power = jnp.maximum(power, eps)

@@ -1,13 +1,13 @@
-"""SWIPE' pitch estimator — MXU-first reformulation.
+"""SWIPE' pitch estimator — a static-matmul reformulation.
 
-Mirrors /root/reference/world/swipe.py:9-169 semantically.  The TPU design
+Mirrors /root/reference/world/swipe.py:9-169 semantically.  The design
 collapses the whole pipeline into static matmuls:
 
   * multi-resolution STFTs are framed batched rFFTs (one per octave, static
     shapes);
   * the cubic-spline resampling onto the ERB grid is precomputed HOST-SIDE
     as a linear operator (spline interpolation is linear in the samples), so
-    on device it is ONE (nERB x nFreq) matmul per octave — MXU work;
+    on device it is ONE (nERB x nFreq) matmul per octave;
   * the prime-harmonic pitch-strength kernels are a static (nCand x nERB)
     matrix -> another matmul;
   * the octave blending weights (lambda/mu) are static masks;
@@ -23,7 +23,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..dsp import fftmm
 from ..dsp.windows import np_hanning_matlab
 
 
@@ -126,9 +125,7 @@ def _swipe_core(x, cfg, fs, t, sTHR):
         starts = np.arange(n_frames) * dn
         idx = starts[:, None] + np.arange(w)[None, :]
         frames = xzp[jnp.asarray(idx)] * jnp.asarray(oct_cfg["win"], dtype)
-        # window sizes are powers of two -> Cooley-Tukey matmul rFFT on TPU
-        # (stock jnp.fft.rfft measured ~100x off roofline there, dsp/fftmm.py)
-        X = jnp.abs(fftmm.rfft(frames))                     # (frames, bins)
+        X = jnp.abs(jnp.fft.rfft(frames))                     # (frames, bins)
         hp = jax.lax.Precision.HIGHEST
         M = jnp.maximum(0.0, jnp.dot(X, jnp.asarray(oct_cfg["A"], dtype),
                                      precision=hp,

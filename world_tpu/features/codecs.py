@@ -1,7 +1,7 @@
 """Feature codecs: mel filterbanks, log-filterbank energies, MCEP, context.
 
 API mirrors /root/reference/world/main.py:259-384 but the loops are batched
-jnp ops (MXU-friendly matmuls for the filterbank projections).
+jnp ops (matmuls for the filterbank projections).
 """
 import jax
 import jax.numpy as jnp

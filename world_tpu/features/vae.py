@@ -4,7 +4,7 @@ The reference's voice-conversion path (encode_vae, main.py:367-384) depends
 on external Keras models (/root/reference/manifold/timit_vae_{encoder,
 decoder}_0001 — 39-256-256-256-12 relu MLPs).  This module loads those h5
 weight files directly (h5py, no TensorFlow) into a jit-compiled MLP with a
-Keras-compatible ``.predict`` so the full VC pipeline runs TPU-native.
+Keras-compatible ``.predict`` so the full VC pipeline runs under JAX.
 """
 import json
 from functools import partial
@@ -34,13 +34,14 @@ class MLP:
         @jax.jit
         def forward(params, x):
             for (w, b), act in zip(params, acts):
-                x = _ACTIVATIONS[act](x @ w + b)
+                x = _ACTIVATIONS[act](jnp.dot(
+                    x, w, precision=jax.lax.Precision.HIGHEST) + b)
             return x
 
         self._forward = forward
 
     def predict(self, X, batch_size=None):
-        del batch_size  # whole batch at once; TPU handles it
+        del batch_size  # the whole batch runs as one jitted call
         return np.asarray(self._forward(self.weights, jnp.asarray(X)))
 
     @classmethod

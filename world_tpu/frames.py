@@ -41,15 +41,18 @@ def _adaptive_window_values(time_axis, f0, window_type: str):
 
 def uniform_frame_period_ms(temporal_positions):
     """Frame period in ms if temporal_positions is the standard uniform grid
-    (arange * fp / 1000), else None (slower gather paths are used then)."""
+    (arange * fp / 1000, in its own dtype), else None (slower gather paths
+    are used then).  A float32 grid's first step is 4.99999988 ms for a
+    5 ms period, so the period is rounded before the grid is rebuilt."""
     tp = np.asarray(temporal_positions)
     if tp.ndim != 1 or tp.shape[0] < 3:
         return None
-    fp_ms = float(tp[1] - tp[0]) * 1000.0
+    fp_ms = round(float(tp[1] - tp[0]) * 1000.0, 6)
     if fp_ms <= 0:
         return None
-    grid = np.arange(tp.shape[0]) * fp_ms / 1000.0
-    if np.allclose(tp, grid, rtol=0, atol=1e-9):
+    grid = (np.arange(tp.shape[0]) * fp_ms / 1000.0).astype(tp.dtype)
+    tol = 4 * np.finfo(tp.dtype).eps * max(1.0, float(np.abs(tp).max()))
+    if np.allclose(tp, grid, rtol=0, atol=tol):
         return fp_ms
     return None
 
@@ -58,8 +61,7 @@ def uniform_frames(x, stride_samples: float, n_frames: int, width: int,
                    rel_start: int):
     """Extract (n_frames, width) slabs slab[q, j] = x_clamped[r(q)+rel_start+j]
     with r(q) = floor(q * stride) — evaluated EXACTLY on the rational stride —
-    using only pads and strided patch extraction (no gathers; TPU gathers run
-    at ~60M elem/s which would dominate every windowed analysis stage).
+    using only pads and strided patch extraction (no gathers).
 
     Index clamping to the signal bounds is realized by edge-padding, which is
     exactly the reference's min/max index clamp (e.g. cheaptrick.py:90-91).
@@ -78,17 +80,10 @@ def uniform_frames(x, stride_samples: float, n_frames: int, width: int,
         c_b = (bres * pnum) // qden
         s = pl + c_b + rel_start
         seg = xpad[s : s + (a_count - 1) * pnum + width]
-        # precision=HIGHEST: on TPU this identity conv otherwise runs one
-        # bf16 MXU pass that QUANTIZES THE SIGNAL ITSELF to 8 mantissa bits
-        # (~2e-3 of peak) — measured r5 as the dominant TPU-vs-CPU noise in
-        # every windowed analysis stage (refinement scores inherited ~5e-3
-        # relative noise, driving the 16 kHz candidate flips).  With HIGHEST
-        # the 3-term operand split makes the extraction bitwise exact.
-        # (A hand-rolled ops._split3_f32 + 3 DEFAULT passes was tried r5 to
-        # halve the MXU passes: --xla_allow_excess_precision contracts the
-        # split's casts outside Pallas, so the parts reaching the conv are
-        # NOT an exact bf16 trio — measured 7.8e-3 extraction error on
-        # device.  Extraction is <0.3 ms of the pipeline; HIGHEST stays.)
+        # precision=HIGHEST: an identity convolution at reduced precision
+        # would quantize the signal itself, and every windowed analysis
+        # stage (Harvest's candidate scores above all) inherits that noise;
+        # at HIGHEST the extraction is exact (precision rule, __init__.py)
         p = lax.conv_general_dilated_patches(
             seg[None, None, :], (width,), (pnum,), "VALID",
             precision=lax.Precision.HIGHEST)                  # (1, width, a)
@@ -219,7 +214,7 @@ def windowed_segment_batch(x, fs, f0, temporal_position, half_length,
     all outputs are (F, 2*max_half+1).
 
     Written batched (not vmapped) so the signal gather lowers to ONE flat
-    1-D-operand gather — TPU-fast — instead of vmap's batched-operand form.
+    1-D-operand gather instead of vmap's batched-operand form.
     """
     f0 = f0[:, None]
     t = temporal_position[:, None]

@@ -1,19 +1,18 @@
-"""Multi-utterance / multi-chip execution: DP over utterances, SP over frames.
+"""Multi-utterance / multi-device execution: DP over utterances, SP over
+frames.
 
 The reference's only parallelism is a fork-based mp.Pool inside harvest
-(/root/reference/world/harvest.py:140-142).  Here parallel scaling is
-expressed the TPU way:
+(/root/reference/world/harvest.py:140-142).  Here:
 
   * data parallelism: a batch of equal-length utterances is sharded over the
-    mesh 'data' axis; the whole encode(+decode) pipeline runs as ONE pjit'd
-    program per shard — no communication needed (XLA inserts none);
-  * sequence parallelism: the frame axis of the spectral analyses
-    (CheapTrick/D4C — frames are independent) is sharded via shard_map with
-    an all_gather to replicate results, exercising ICI collectives;
-  * everything works on any jax.sharding.Mesh — 1 real TPU, N virtual CPU
-    devices, or a real pod slice.
+    mesh 'data' axis; the whole encode(+decode) pipeline runs as ONE
+    shard_map'd program per shard — no communication needed;
+  * sequence parallelism: the frame axis of CheapTrick (frames are
+    independent) is sharded via shard_map, with a psum across the shards;
+  * everything works on any 1-D jax.sharding.Mesh — one GPU, four GPUs of a
+    host, or N virtual CPU devices.
 """
-from functools import partial
+from functools import lru_cache, partial
 
 import jax
 import jax.numpy as jnp
@@ -118,6 +117,17 @@ def _encode_decode_classic_one(x, key, fs: int, frame_period: int):
     return dict(dat, y=y, _overflow=_overflow)
 
 
+def default_caps(n_samples: int, fs: int):
+    """(max_pulses, max_candidates, max_sections): the static table sizes
+    :func:`batch_encode_decode` uses for utterances of ``n_samples``."""
+    from ..f0.harvest import default_max_sections
+
+    max_pulses = int(2 ** np.ceil(np.log2(n_samples / fs * 1000 + 8)))
+    n_bands = int(np.ceil(np.log2((800 * 1.1) / (71 * 0.9)) * 40))
+    max_candidates = int(n_bands / 10 + 0.5)
+    return max_pulses, max_candidates, default_max_sections(n_samples, fs)
+
+
 def batch_encode_decode(xs, fs: int, mesh: Mesh = None, frame_period: int = 5,
                         seed: int = 0, max_pulses: int = None,
                         max_candidates: int = None, max_sections: int = None,
@@ -131,49 +141,52 @@ def batch_encode_decode(xs, fs: int, mesh: Mesh = None, frame_period: int = 5,
     per-utterance overflow flags once after the batch and raises the same
     RuntimeWarning as the public ``harvest()``/``decode()`` paths.
     """
-    from ..f0.harvest import default_max_sections
     from ..synth.seeds import get_seeds_signals
 
     xs = jnp.asarray(xs)
     seeds = get_seeds_signals(int(fs), seed=seed)
     pulse_seed = jnp.asarray(seeds["pulse"], xs.dtype)
     noise_seed = jnp.asarray(seeds["noise"], xs.dtype)
-    duration = xs.shape[1] / fs
-    if max_pulses is None:
-        max_pulses = int(2 ** np.ceil(np.log2(duration * 1000 + 8)))
-    if max_candidates is None:
-        n_bands = int(np.ceil(np.log2((800 * 1.1) / (71 * 0.9)) * 40))
-        max_candidates = int(n_bands / 10 + 0.5)
-    if max_sections is None:
-        max_sections = default_max_sections(xs.shape[1], fs)
+    d_pulses, d_candidates, d_sections = default_caps(xs.shape[1], fs)
+    max_pulses = d_pulses if max_pulses is None else max_pulses
+    max_candidates = d_candidates if max_candidates is None else max_candidates
+    max_sections = d_sections if max_sections is None else max_sections
 
-    fn = jax.vmap(partial(_encode_decode_one, fs=int(fs),
-                          frame_period=int(frame_period),
-                          max_pulses=int(max_pulses),
-                          max_candidates=int(max_candidates),
-                          max_sections=int(max_sections)),
-                  in_axes=(0, None, None))
+    fn = batch_fn(int(fs), int(frame_period), int(max_pulses),
+                  int(max_candidates), int(max_sections), mesh)
     if mesh is not None:
-        # DP via shard_map, not vmap+pjit sharding: each device compiles the
-        # LOCAL (B/ndev, n) program — identical in shape (and hence bitwise
-        # in result, see dsp/iir.py) to a single-device run of its rows, and
-        # with zero collectives (XLA inserts none; utterances are
-        # independent).  Under plain pjit the partitioner would instead
-        # spread every per-row op across the mesh.
         xs = jax.device_put(xs, NamedSharding(mesh, P("data", None)))
-        # check_vma off: the local program is collective-free by design and
-        # its scans carry unvarying literals into varying carries, which the
-        # varying-manual-axes analysis would reject
-        fn = jax.jit(jax.shard_map(fn, mesh=mesh,
-                                   in_specs=(P("data", None), P(), P()),
-                                   out_specs=P("data"), check_vma=False))
-    else:
-        fn = jax.jit(fn)
     out = fn(xs, pulse_seed, noise_seed)
     if check_capacity:
         _warn_batch_capacity(np.asarray(out["_overflow"]), max_sections,
                              max_pulses)
     return out
+
+
+@lru_cache(maxsize=None)
+def batch_fn(fs: int, frame_period: int, max_pulses: int, max_candidates: int,
+             max_sections: int, mesh: Mesh = None):
+    """The jitted batched program ``(xs, pulse_seed, noise_seed) -> out`` of
+    :func:`batch_encode_decode`, built once per configuration so repeated
+    calls reuse one compilation."""
+    fn = jax.vmap(partial(_encode_decode_one, fs=fs, frame_period=frame_period,
+                          max_pulses=max_pulses,
+                          max_candidates=max_candidates,
+                          max_sections=max_sections),
+                  in_axes=(0, None, None))
+    if mesh is None:
+        return jax.jit(fn)
+    # DP via shard_map, not vmap+pjit sharding: each device compiles the
+    # LOCAL (B/ndev, n) program — identical in shape (and hence bitwise in
+    # result, see dsp/iir.py) to a single-device run of its rows, and with
+    # zero collectives (utterances are independent).  Under plain pjit the
+    # partitioner would instead spread every per-row op across the mesh.
+    # check_vma off: the local program is collective-free by design and its
+    # scans carry unvarying literals into varying carries, which the
+    # varying-manual-axes analysis would reject
+    return jax.jit(jax.shard_map(fn, mesh=mesh,
+                                 in_specs=(P("data", None), P(), P()),
+                                 out_specs=P("data"), check_vma=False))
 
 
 def batch_encode_decode_ragged(xs, fs: int, mesh: Mesh = None,
@@ -189,8 +202,8 @@ def batch_encode_decode_ragged(xs, fs: int, mesh: Mesh = None,
     stripped back to each utterance's own frame/sample counts.
 
     Semantics: each utterance is analyzed as if zero-padded to its bucket
-    length.  All-zeros tails analyze as unvoiced (asserted by
-    tools/verify_tpu.py's zeros check), and the stripped outputs cover only
+    length.  All-zeros tails analyze as unvoiced (asserted on the card by
+    chip_smoke.py's zeros check), and the stripped outputs cover only
     the utterance's own duration.  Within a bucket, rows are bitwise
     identical to a single-stream run at the same padded length (the
     determinism contract of dsp/iir.py's rank canonicalization) — asserted
@@ -254,7 +267,7 @@ def frame_sharded_cheaptrick(x, f0, vuv, temporal_positions, fs: int,
                              mesh: Mesh, fft_size: int = None):
     """Sequence-parallel CheapTrick: the frame axis is sharded over the mesh;
     each device analyzes its frame block against the replicated signal, then
-    an all_gather (ICI collective) replicates the envelope."""
+    the envelope comes back frame-sharded, with a psum across the shards."""
     if fft_size is None:
         fft_size = default_fft_size(fs)
     n_dev = mesh.devices.size
@@ -266,7 +279,7 @@ def frame_sharded_cheaptrick(x, f0, vuv, temporal_positions, fs: int,
 
     def local(xl, f0l, tpl):
         env, _, _ = _cheaptrick_core(xl, int(fs), f0l, tpl, int(fft_size), -0.15)
-        # a cross-device collective over the frame shards (rides ICI on TPU)
+        # a cross-device collective over the frame shards
         total_energy = jax.lax.psum(jnp.sum(env), "data")
         return env, total_energy
 

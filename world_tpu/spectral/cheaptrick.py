@@ -2,7 +2,7 @@
 
 Semantics follow /root/reference/world/cheaptrick.py (per-frame F0-adaptive
 window -> power spectrum + DC mirror fill -> rectangular smoothing ->
-cepstral liftering), but the execution model is TPU-first: every frame is a
+cepstral liftering), but the execution model is batch-first: every frame is a
 row of a fixed-shape batch; the whole utterance is ONE windowed-gather, ONE
 batched rFFT, ONE cumsum-smoothing and ONE batched cepstrum round-trip.
 Divergences from the reference (documented):
@@ -17,11 +17,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..dsp import fftmm
 from ..dsp.interp import interp1h_uniform
 from ..dsp.minphase import mirror_full
 from ..frames import (apply_adaptive_window, uniform_frame_period_ms,
                       windowed_segment_batch)
+
+
+_EPS64 = 2.220446049250313e-16   # np.finfo(np.float64).eps
+_FRAME_BLOCK = 32
 
 
 def default_fft_size(fs: int) -> int:
@@ -56,7 +59,7 @@ def _power_spectrum_with_dc_fill(waveform_padded, shift, fs, fft_size, f0, dtype
     # sit at position 0 for the fft; a circular left-shift by `shift` does
     # that exactly (nothing nonzero wraps), and in the spectrum it is just a
     # phase ramp — power needs NO shift at all
-    spec0 = fftmm.fft(waveform_padded[:, :fft_size], fft_size)
+    spec0 = jnp.fft.fft(waveform_padded[:, :fft_size], fft_size)
     k_idx = jnp.arange(fft_size, dtype=dtype)[None, :]
     ramp = jnp.exp((2j * jnp.pi / fft_size) * shift[:, None].astype(dtype) * k_idx)
     ps_spectrum = spec0 * ramp
@@ -77,13 +80,13 @@ def _linear_smoothing(power_full, f0, fs, fft_size: int, dtype):
 
     smoothed = rect_smooth_half(power_full, (2.0 / 3.0) * f0[:, 0], fs,
                                 fft_size, dtype)
-    # guard for the quantized cumsum difference: in reduced precision the
-    # high-low cancellation can dip slightly negative on noise-floor bins;
-    # floor at a scale-relative tiny (inactive in f64, where only the
-    # reference's eps guard matters)
+    # the reference adds float64 eps (cheaptrick.py:117) whatever the data's
+    # dtype: an absolute float32 eps (1.2e-7) would swamp every bin ~50 dB
+    # below a speech frame's peak.  The scale-relative floor guards a
+    # rounding dip below zero on dead bins (inactive in f64)
     eps = jnp.finfo(power_full.dtype).eps
     floor = jnp.mean(power_full, axis=-1, keepdims=True) * eps * eps
-    return jnp.maximum(smoothed + eps, floor)
+    return jnp.maximum(smoothed + _EPS64, floor)
 
 
 def _smoothing_with_recovery(smoothed_full, f0, fs, fft_size: int, q1, dtype):
@@ -97,8 +100,8 @@ def _smoothing_with_recovery(smoothed_full, f0, fs, fft_size: int, q1, dtype):
     sym = np.where(idx > fft_size // 2, fft_size - idx, idx)
     sl = sl[:, sym]
     cl = cl[:, sym]
-    cep = fftmm.fft(jnp.log(smoothed_full))
-    env = jnp.exp(fftmm.ifft(cep * sl * cl).real)
+    cep = jnp.fft.fft(jnp.log(smoothed_full))
+    env = jnp.exp(jnp.fft.ifft(cep * sl * cl).real)
     return env[:, : fft_size // 2 + 1]
 
 
@@ -108,6 +111,14 @@ def _cheaptrick_core(x, fs, f0_seq, temporal_positions, fft_size, q1,
     dtype = x.dtype
     f0_low_limit = fs * 3.0 / (fft_size - 3.0)
     default_f0 = 500.0
+    # frames are independent: pad their count to a multiple of _FRAME_BLOCK
+    # so a frame's batched FFT sees the same neighbours whether the program
+    # runs one utterance or a vmapped batch (the CPU FFT groups transforms
+    # in blocks and rounds a transform differently by its place in a block)
+    n_frames = f0_seq.shape[0]
+    pad = (-n_frames) % _FRAME_BLOCK
+    f0_seq = jnp.pad(f0_seq, (0, pad), constant_values=default_f0)
+    temporal_positions = jnp.pad(temporal_positions, (0, pad), mode="edge")
     f0_eff = jnp.where(f0_seq < f0_low_limit, default_f0, f0_seq)
 
     max_half = (fft_size - 2) // 2  # half <= int(1.5*fs/f0_low_limit+.5) <= this
@@ -127,7 +138,7 @@ def _cheaptrick_core(x, fs, f0_seq, temporal_positions, fft_size, q1,
     smoothed = _linear_smoothing(power_full, f0_eff[:, None], float(fs), fft_size, dtype)
     smoothed_full = mirror_full(smoothed)
     env = _smoothing_with_recovery(smoothed_full, f0_eff, float(fs), fft_size, q1, dtype)
-    return env, ps_spec, f0_eff
+    return env[:n_frames], ps_spec[:n_frames], f0_eff[:n_frames]
 
 
 def cheaptrick(x, fs, source_object, q1=-0.15, fft_size=None):

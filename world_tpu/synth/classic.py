@@ -1,7 +1,7 @@
 """Classic WORLD synthesis (pulse train + filtered noise overlap-add).
 
 Semantics from /root/reference/world/synthesis.py:21-250; execution is
-TPU-first:
+batch-first:
   * pulse positions come from a phase-wrap cumsum, compacted into a
     fixed-capacity pulse table;
   * the per-pulse Python loop becomes ONE vmap: batched 2-frame spectral
@@ -16,7 +16,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..dsp import fftmm
 from ..dsp.interp import interp1_extrap
 from ..dsp.minphase import minimum_phase_spectrum, mirror_full
 from ..dsp.windows import np_hanning_matlab
@@ -24,8 +23,8 @@ from ..dsp.windows import np_hanning_matlab
 
 def grid_interp(values, temporal_positions, queries, frame_period_s):
     """interp1d(tp, values, fill_value='extrapolate') when tp is the uniform
-    frame grid: direct index arithmetic instead of a binary search (XLA's
-    searchsorted scan is ~100x slower than this on TPU).  values: (..., n)."""
+    frame grid: direct index arithmetic instead of a binary search.
+    values: (..., n)."""
     n = values.shape[-1]
     pos = (queries - temporal_positions[0]) / frame_period_s
     j = jnp.clip(jnp.floor(pos).astype(jnp.int32), 0, n - 2)
@@ -133,7 +132,7 @@ def _synthesis_core(f0, vuv, temporal_positions, spectrogram, aperiodicity,
     ramp = jnp.exp(-1j * (coefficient * shifts)[:, None] * half_k[None, :])
     half = half * ramp
     full = jnp.concatenate([half, half[:, -2:0:-1].conj()], axis=1)
-    response = jnp.fft.fftshift(fftmm.ifft(full).real, axes=-1)
+    response = jnp.fft.fftshift(jnp.fft.ifft(full).real, axes=-1)
     dc_remover = dc_base[None, :] * (-jnp.sum(response, axis=1, keepdims=True))
     periodic = (response + dc_remover) * jnp.sqrt(
         jnp.maximum(1.0, noise_sizes.astype(dtype)))[:, None]
@@ -143,7 +142,7 @@ def _synthesis_core(f0, vuv, temporal_positions, spectrogram, aperiodicity,
     ap_spec = jnp.where(voiced[:, None], spec * aps, spec)
     ap_spec = jnp.maximum(ap_spec, jnp.finfo(dtype).eps)
     ap_response = jnp.fft.fftshift(
-        fftmm.ifft(minimum_phase_spectrum(mirror_full(ap_spec))).real,
+        jnp.fft.ifft(minimum_phase_spectrum(mirror_full(ap_spec))).real,
         axes=-1)
     n_noise = jnp.maximum(3, jnp.minimum(noise_sizes, max_noise))
     noise_mask = jnp.arange(max_noise)[None, :] < n_noise[:, None]
@@ -158,8 +157,8 @@ def _synthesis_core(f0, vuv, temporal_positions, spectrogram, aperiodicity,
                       / n_noise[:, None], 0.0)
     # conv(noise, response)[:fft_size]  (fftfilt, synthesis.py:189-250)
     conv_n = 2 * fft_size
-    ap_out = fftmm.irfft(fftmm.rfft(noise, conv_n)
-                         * fftmm.rfft(ap_response, conv_n),
+    ap_out = jnp.fft.irfft(jnp.fft.rfft(noise, conv_n)
+                         * jnp.fft.rfft(ap_response, conv_n),
                          conv_n)[:, :fft_size]
 
     del k_overlap

@@ -1,7 +1,7 @@
 """Requiem synthesis: excitation generation + spectral filtering.
 
-Semantics from /root/reference/world/synthesisRequiem.py:12-141; TPU-first
-execution:
+Semantics from /root/reference/world/synthesisRequiem.py:12-141;
+batch-first execution:
   * the per-band looped velvet noise (whose reference implementation hides a
     persistent cursor in a function attribute, synthesisRequiem.py:131-141)
     becomes an explicit modular gather with caller-supplied offsets —
@@ -17,7 +17,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..dsp import fftmm
 from ..dsp.interp import interp1_extrap
 from ..dsp.minphase import minimum_phase_spectrum, mirror_full
 from ..dsp.windows import np_hanning_matlab
@@ -81,7 +80,7 @@ def _excitation_core(temporal_positions, f0, vuv, band_ap_db, pulse_seed,
         row, (off,), (y_length,)))(tiled, noise_offsets % noise_len)
     aperiodic = jnp.sum(noise * interp_ap, axis=0)
 
-    # periodic component: (pulses, bands) weights @ (bands, fft) seeds
+    # periodic component: (pulses, bands) weights x (bands, fft) seeds
     pulse_ids = jnp.arange(max_pulses)
     valid = pulse_ids < count
     ap_at_pulse = interp_ap[:, jnp.clip(pli - 1, 0, y_length - 1)]  # (bands, P)
@@ -91,7 +90,11 @@ def _excitation_core(temporal_positions, f0, vuv, band_ap_db, pulse_seed,
                                          max_pulses - 1))
     noise_size = jnp.sqrt(jnp.maximum(1.0, (next_pli - pli).astype(dtype)))
     weights = (1.0 - ap_at_pulse.T) * jnp.where(voiced, noise_size, 0.0)[:, None]
-    responses = weights @ pulse_seed.T                     # (P, fft)
+    # (P, fft): the contraction runs over the few (3-7) bands, so it is an
+    # explicit sum of exact float32 products rather than a dot whose
+    # precision the backend picks
+    responses = sum(weights[:, b, None] * pulse_seed[None, :, b]
+                    for b in range(n_bands))
     # overlap-add: slotted matmul OLA (dsp.ola); padded pulses park past the
     # tail.  k_overlap retained in the signature for compatibility.
     del k_overlap
@@ -121,8 +124,14 @@ def _waveform_core(excitation, spectrogram, temporal_positions, fs, fft_size,
                           + jnp.arange(win_len)[None, :]) - 1
     tmp = jnp.take(excitation, seg_idx) * win[None, :]
     spec = spectrogram.T[1:n_frames - 2]  # frame i uses column i-1
+    # frame count padded to a block multiple: each frame's FFTs then round
+    # the same way whatever the batch around them (see cheaptrick.py)
+    n_used = tmp.shape[0]
+    pad = (-n_used) % 32
+    tmp = jnp.pad(tmp, ((0, pad), (0, 0)))
+    spec = jnp.pad(spec, ((0, pad), (0, 0)), constant_values=1.0)
     mp = minimum_phase_spectrum(mirror_full(spec))
-    resp = fftmm.ifft(mp * fftmm.fft(tmp, fft_size)).real
+    resp = jnp.fft.ifft(mp * jnp.fft.fft(tmp, fft_size)).real[:n_used]
     from ..dsp.ola import uniform_ola
 
     return uniform_ola(resp, fps - half - 1, fps, y_len)
@@ -167,6 +176,7 @@ def synthesis_requiem(source_object, filter_object, seeds_signals,
             f"{max_pulses}; trailing pulses were dropped — raise max_pulses",
             RuntimeWarning, stacklevel=2)
     fft_size = (spectrogram.shape[0] - 1) * 2
-    fps = int((tp[1] - tp[0]) * fs)
+    # rounded: a float32 time axis gives 79.9999 samples for a 5 ms hop
+    fps = int(round((tp[1] - tp[0]) * fs))
     return _waveform_core(excitation, spectrogram, jnp.asarray(tp), fs,
                           int(fft_size), fps)
